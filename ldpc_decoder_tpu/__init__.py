@@ -1,4 +1,4 @@
-"""ldpc_decoder_tpu — a TPU-native LDPC soft-decoding framework.
+"""ldpc_decoder_tpu — an LDPC soft-decoding framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the GPU decoder
 ``kunzjacq/ldpc_decoder`` (C++/CUDA/OpenCL): syndrome-based flood (belief
@@ -9,8 +9,8 @@ statistics.
 
 Design notes (vs the reference, see SURVEY.md):
 
-- Frames occupy the *lane* (last) axis of every device array, edges/bits the
-  sublane axis — the TPU analog of the reference's frame-interleaved SoA layout
+- Frames occupy the last (contiguous) axis of every device array, edges/bits
+  the rows — the reference's frame-interleaved SoA layout
   (reference: flood.cu:57,133 ``v + num_vecs * i``).
 - The Tanner graph is compiled once into degree-sorted static index tables so
   that both belief-propagation half-passes are dense reshape+reduce over small

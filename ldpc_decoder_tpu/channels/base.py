@@ -12,7 +12,7 @@ Noise addition exists in two flavours:
   reference's draw order (channel.cpp:29-37, 60-68) — used for
   reference-stream-compatible data generation and golden tests.
 - ``llr_from_channel``: the jittable device-side conversion of raw channel
-  values to decoder-input LLRs (the TPU analog of the llr_bsc/llr_biawgn
+  values to decoder-input LLRs (the analog of the llr_bsc/llr_biawgn
   kernels, flood.cu:47-75).
 """
 

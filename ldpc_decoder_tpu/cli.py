@@ -17,9 +17,10 @@ Flag-compatible with the reference binary (main.cpp:540-563):
   -r n  number of runs (default 1)
   -s n  first frame index (seed base) for reproducibility
 
-TPU-specific extras (long options): --dtype {float32,bfloat16,int8} for
-message storage, --check-period k (the reference's non-CLI
-m_num_iter_check_parity), --memory-bytes to override HBM autodetection,
+Extras (long options): --dtype {float32,bfloat16,int8} for message
+storage, --check-period k (the reference's non-CLI
+m_num_iter_check_parity), --memory-bytes to override device-memory
+autodetection,
 --lanes for an exact resident-frame count (bypasses the memory model),
 --algorithm/--minsum-alpha/--minsum-offset/--minsum-clamp/--qscale for the
 min-sum rule, --kernel and --first-check (see below). Every StaticParams/
@@ -42,7 +43,7 @@ from ldpc_decoder_tpu.runtime.params import DynamicParams, StaticParams
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="ldpc_decoder_tpu",
-        description="TPU-native LDPC flood decoder test harness",
+        description="LDPC flood decoder test harness",
     )
     p.add_argument("-b", type=float, default=0.0, metavar="BER",
                    help="frame-error BER threshold (alternative to -e)")
@@ -77,9 +78,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lanes", type=int, default=None, metavar="COUNT",
                    help="exact number of frames resident on device "
                    "(bypasses the memory model and the -p cap — the "
-                   "caller owns the OOM risk; production counts should "
-                   "be multiples of 128, e.g. the measured sweet spots "
-                   "B=384 on the general path, B=768 for int8 min-sum)")
+                   "caller owns the out-of-memory risk)")
     p.add_argument("--algorithm", choices=["sum-product", "min-sum"],
                    default="sum-product",
                    help="check-node rule (min-sum: offset/normalized "
@@ -104,7 +103,9 @@ def build_parser() -> argparse.ArgumentParser:
                    "two; range +-127/SCALE, resolution 1/SCALE) for "
                    "--dtype int8")
     p.add_argument("--kernel", choices=["auto", "pallas", "xla"],
-                   default="auto", help="QC decode kernel implementation")
+                   default="auto",
+                   help="node-update implementation: auto (the Pallas "
+                   "kernels for QC codes on a GPU, else XLA), pallas, xla")
     p.add_argument("--first-check", type=int, default=0, metavar="ITER",
                    help="iteration of the first parity check (0 = every "
                    "--check-period). Skips provably-futile early checks "
@@ -150,6 +151,9 @@ def main(argv=None) -> int:
         print("0 runs to perform, exiting")
         return 0
 
+    from ldpc_decoder_tpu.runtime.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     print(f"Code file name:{args.f}")
     try:
         channel = make_channel(args.c, args.n)

@@ -1,4 +1,4 @@
-"""Compilation of a Tanner graph into TPU-friendly static index tables.
+"""Compilation of a Tanner graph into static, degree-sorted index tables.
 
 The reference walks CSR offset tables with per-thread running pointers
 (flood.cu:127-156, flood_vec2.cl:256-260) — a pattern that maps badly to XLA.

@@ -268,13 +268,9 @@ def p41_code(Z: int = 18432, seed: int = 3, m: int = 8,
 
     n = 7*m*Z total variables of which m*Z are punctured; rate 1/2 over
     transmitted bits. Defaults give the validated n=1,032,192 instance:
-    coarse=1024 lattice (halo amplification 1.0625 vs 1.125 at 512 —
-    ~3% less rotated-read traffic per iteration), seed 3 from a measured
-    seed search (scripts/try_coarse1024_seeds.py: 213.4 Mb/s vs 212.0
-    for the round-2 coarse=512/seed=1 instance at the sigma=0.94
-    operating point) with the waterfall qualified at 2048 frames per
-    point: FER 0 at 0.94 and 0.95, FER 0.0044 at 0.952
-    (scripts/out/fer_stats_c1024s3.json).
+    the coarse=1024 lattice and seed 3 from a seed search, with the
+    waterfall qualified at 2048 frames per point: FER 0 at 0.94 and 0.95,
+    FER 0.0044 at 0.952 (scripts/out/fer_stats_c1024s3.json).
     """
     return make_protograph_code_two_stage(
         P41_BASE, P41_PUNCTURED_COLS, m=m, Z=Z, seed=seed,

@@ -1,13 +1,10 @@
 """Quasi-cyclic (protograph-lifted) LDPC codes.
 
-A TPU-first co-design: the reference decodes arbitrary irregular alist codes
-with scalar CSR walks (which a GPU tolerates); on TPU the Tanner-graph edge
-permutation becomes the bottleneck (a random row gather runs ~12 ns/row,
-latency-bound). QC codes make the permutation *structured*: the parity-check
-matrix is an R×C grid of Z×Z circulants, so moving messages between
-check-order and variable-order is a per-block cyclic rotation — a dense,
-DMA-friendly operation that runs at full HBM bandwidth in a Pallas kernel
-(see ops/qc_pallas.py) instead of a gather.
+The reference decodes arbitrary irregular alist codes with scalar CSR
+walks. QC codes make the Tanner-graph edge permutation *structured*: the
+parity-check matrix is an R×C grid of Z×Z circulants, so moving messages
+between check-order and variable-order is a per-block cyclic rotation — an
+index offset inside a kernel (ops/qc_triton.py) instead of a gather.
 
 QC-LDPC is also standard engineering practice (5G NR, 802.11, DVB-S2), and
 protograph ensembles reach the same thresholds as unstructured irregular
@@ -361,14 +358,11 @@ def make_qc_structure(
 ) -> QCStructure:
     """Random circulant shifts for a 0/1 base matrix, rejecting 4-cycles.
 
-    When ``coarse`` is given (hardware/kernel co-design, see
-    ops/qc_pallas.py "seam mode"), shifts are drawn on the lattice
-    ``s = a*coarse + b (mod Z)`` with ``|b| < fine_mod``: the Pallas kernels
-    then fetch one aligned tile plus two tiny halo blocks per rotated
-    window (for any tile size dividing ``coarse``) instead of a full tile
-    pair. The fine ±b parts keep the graph connected and act as an extra
-    short-cycle sieve (a cycle's coarse parts sum to a multiple of the
-    tile, so its fine parts must cancel exactly).
+    When ``coarse`` is given, shifts are drawn on the lattice
+    ``s = a*coarse + b (mod Z)`` with ``|b| < fine_mod`` (the shipped codes
+    are built this way). The fine ±b parts keep the graph connected and
+    act as an extra short-cycle sieve (a cycle's coarse parts sum to a
+    multiple of ``coarse``, so its fine parts must cancel exactly).
     """
     base = np.asarray(base)
     # expand entries > 1 into parallel protograph edges (resolved by the

@@ -1,6 +1,6 @@
 // Native host-side data path for ldpc_decoder_tpu.
 //
-// TPU-native rebuild of the reference's CPU hot path (L4 of SURVEY.md §1):
+// Native rebuild of the reference's CPU hot path (L4 of SURVEY.md §1):
 //   - seekable ChaCha8 keystream        (src/prng_chacha.cpp, chacha_stream.cpp)
 //   - reference-bit generation          (main.cpp:478-487)
 //   - channel noise (BSC / BI-AWGN)     (src/channel.cpp:29-68, h/rng.h:38-70)

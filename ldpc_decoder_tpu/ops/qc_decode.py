@@ -13,7 +13,7 @@ Tanner-graph edge permutation is realized as per-circulant cyclic rotations:
   roll(+s), moving back is roll(-s) — no gathers anywhere.
 
 This module is the jnp/XLA implementation (and the correctness oracle);
-ops/qc_pallas.py fuses the same math into Pallas kernels.
+ops/qc_triton.py fuses the same math into Pallas kernels for the GPU.
 
 The 2-D state interface (msgs [E, B], llr [n_vars, B], syn [n_checks, B] in
 block-sorted order) matches ops/decode.py, so the decoder runtime drives
@@ -367,8 +367,8 @@ def cn_update_qc_minsum(
         a_excl = jnp.where(k_idx == pos, jnp.inf, a)
         min2 = jnp.min(a_excl, axis=1, keepdims=True)
         if g.degree == 1:
-            # sole edge: the leave-one-out set is empty; mirror the grouped
-            # kernel's d==1 special case (qc_pallas_grouped._cn_kernel_g)
+            # sole edge: the leave-one-out set is empty; mirror the
+            # kernels' d==1 special case (qc_triton._cn_kernel)
             # so oracle and kernel stay bit-identical (inf would NaN the
             # VN pass via inf - inf)
             min2 = jnp.zeros_like(min2)
@@ -471,7 +471,7 @@ def burst_iterations_qc(msgs2d, llr2d, syn2d, tables: QCDecodeTables,
                         qscale: float = 4.0):
     """``b`` plain BP iterations, no emit / no parity — bit-identical
     prefix of run_iterations_qc (the delayed-first-parity-check phase;
-    see qc_pallas_grouped.burst_iterations_qc_grouped)."""
+    DynamicParams.num_iter_first_check)."""
     B = msgs2d.shape[-1]
     Z = tables.Z
     msgs = msgs2d.reshape(tables.n_blocks, Z, B)

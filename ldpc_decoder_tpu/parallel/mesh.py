@@ -1,8 +1,8 @@
 """Multi-chip parallelism: frame-batch sharding over a device mesh.
 
 The reference is single-process single-GPU (SURVEY.md §2): its only
-parallelism axes are frames and intra-frame edges. On TPU the frame axis
-extends across chips/hosts: every device array in the decoder has frames on
+parallelism axes are frames and intra-frame edges. Here the frame axis
+extends across devices and hosts: every device array in the decoder has frames on
 its trailing axis, so the entire decode partitions along one mesh axis
 ("batch") with *zero* communication inside BP iterations — each frame's
 Tanner graph lives whole on one chip. The only cross-chip traffic is the

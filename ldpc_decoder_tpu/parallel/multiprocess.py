@@ -12,11 +12,11 @@ cross devices, so multi-host decode is
    communication and any frame is reproducible anywhere;
 3. the same ``shard_map`` decode as the single-process multi-chip path,
    over the *global* mesh: the only cross-host traffic is the psum'd
-   remaining-frames scalar in the while_loop condition (riding ICI/DCN)
+   remaining-frames scalar in the while_loop condition
    and a tiny allgather of report statistics at the end.
 
 On CPU (tests/CI) the cross-process collectives use XLA's gloo backend;
-on TPU pods the same code rides ICI.
+on GPUs the same code rides NCCL.
 """
 
 from __future__ import annotations
@@ -32,8 +32,8 @@ def initialize(coordinator_address: str, num_processes: int,
     """jax.distributed.initialize with an optional virtual-CPU backend.
 
     ``cpu_devices_per_process`` forces the CPU platform with that many
-    virtual devices (the multi-host CI configuration); on real TPU pods
-    leave it None and let the TPU runtime enumerate local chips.
+    virtual devices (the multi-host CI configuration); on accelerator
+    hosts leave it None and let the runtime enumerate local devices.
     """
     import jax
 

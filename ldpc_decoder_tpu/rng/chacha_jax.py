@@ -2,7 +2,7 @@
 
 The device twin of :mod:`ldpc_decoder_tpu.rng.chacha_np`: the same
 (seed, word-index) -> uint32 pure function, evaluated as vectorized uint32
-lane arithmetic on TPU. This makes the whole data-generation pipeline —
+arithmetic on the device. This makes the whole data-generation pipeline —
 reference bits, channel noise, syndromes — run on device with zero host
 transfers, while staying reproducible from absolute frame indices exactly
 like the reference (main.cpp:474-481).
@@ -81,7 +81,7 @@ def stream_words_2d(
     """Words 0..n_words of the buffered stream for each seed -> [m, n_words].
 
     ``seeds`` is given split as [2, m] uint32 (lo, hi) to avoid uint64 on
-    TPU. n_words is padded up to a whole number of blocks internally.
+    the device. n_words is padded up to a whole number of blocks internally.
     """
     m = seeds.shape[1]
     n_blocks = -(-n_words // 16)

@@ -13,7 +13,7 @@ static codes, README.md:109-115).
     python scripts/design_code.py --rate 0.8 --threshold 0.62 \
         --shape 3x15 --punct 0 --steps 4000 --n 983040
 
-    # full pipeline incl. on-chip seed search + waterfall (needs the TPU):
+    # full pipeline incl. on-device seed search + waterfall (needs a GPU):
     python scripts/design_code.py --rate 0.5 --n 1048576 \
         --measure --seeds 1,2,3 --sigmas 0.94,0.95
 
@@ -165,7 +165,7 @@ def main():
     ap.add_argument("--coarse", type=int, default=1024)
     ap.add_argument("--fine-mod", type=int, default=64)
     ap.add_argument("--measure", action="store_true",
-                    help="run on-chip seed search + waterfall (needs TPU)")
+                    help="run on-device seed search + waterfall (needs a GPU)")
     ap.add_argument("--sigmas", default=None,
                     help="waterfall sigma points (default: op, op+0.01)")
     ap.add_argument("--frames", type=int, default=512)
@@ -232,7 +232,7 @@ def main():
         summary["waterfall"] = points
         summary["final_alist"] = path
     else:
-        print("(construction only — pass --measure on a TPU host for the "
+        print("(construction only — pass --measure on a GPU host for the "
               "seed search + waterfall qualification)", flush=True)
     print(json.dumps(summary))
 

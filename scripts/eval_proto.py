@@ -1,4 +1,4 @@
-"""FER-scan a punctured protograph candidate on the real TPU.
+"""FER-scan a punctured protograph candidate on the device.
 
 Lifts a protomatrix (from scripts/optimize_proto.py) with the two-stage
 girth-aware construction and measures FER/BER/iterations over a sigma
@@ -51,8 +51,7 @@ add_candidate("p41", [
     [1, 0, 0, 0, 0, 0, 2],
 ], 1, m=8, coarse=512, fine_mod=64)
 
-# p41 on the coarse-1024 lattice: admits tile-1024 grouped kernels
-# (LDPC_GROUP_TILE_BUDGET=16384 + 32 MiB scoped VMEM)
+# p41 on the coarse-1024 lattice (the shipped instance's lattice)
 add_candidate("p41c", [
     [0, 1, 1, 0, 1, 0, 3],
     [0, 1, 0, 1, 2, 1, 2],

@@ -1,6 +1,6 @@
 """High-confidence error-rate statistics for the flagship p41 code.
 
-Decodes FRAMES (default 2048) frames per sigma point on the real TPU and
+Decodes FRAMES (default 2048) frames per sigma point on the device and
 writes a JSON artifact (scripts/out/fer_stats.json) with FER(>0),
 FER(>15), BER, exact frame counts, AND steady-state decoding throughput
 per point — 4x the reference's 512-frame sample so "strictly better

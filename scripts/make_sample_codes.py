@@ -18,9 +18,9 @@ lattice, girth 8):
   ~0.0073 — the reference README's "p up to 0.09" is not attainable by any
   rate-0.9 code over a plain BSC (capacity at p=0.09 is 0.56 bits/symbol),
   so the shipped code documents its true operating range instead.
-  Measured on chip (girth-8 shipped code): FER 0/512 at p = 0.004 /
-  0.006 / 0.007 (731 / 422 / 227 Mb/s; 95.8% of capacity), collapse at
-  0.0075 (FER 0.79) — right at the ensemble threshold.
+  The shipped girth-8 code decoded FER 0/512 at p = 0.004 / 0.006 /
+  0.007 (95.8% of capacity) and collapsed at 0.0075 (FER 0.79) — right at
+  the ensemble threshold.
 
 Usage: python scripts/make_sample_codes.py [out_dir]
 """

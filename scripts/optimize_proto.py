@@ -34,7 +34,7 @@ from ldpc_decoder_tpu.codes.protographs import (  # noqa: E402
 import os
 
 DE_ITERS = int(os.environ.get("DE_ITERS", "80"))  # decoder budget is 120
-MAX_COL, MAX_ROW = 8, 8   # VMEM: grouped kernels keep tile 512 iff d<=8
+MAX_COL, MAX_ROW = 8, 8   # degree caps of the shipped design space
 MAX_ENTRY = 3             # parallel edges per cell (pre-lift resolves)
 
 # best-known annealed bases per (R, C, n_punct) — seeds for refinement

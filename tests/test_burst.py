@@ -41,7 +41,8 @@ def test_burst_prefix_identity_regular(impl):
     code, s = make_qc_code(BASE_36, Z=64, seed=2)
     ch = BIAWGNChannel(0.8)
     dec = LDPCDecoder(code, ch, StaticParams(
-        max_log_parallel_factor_user=3, kernel_impl=impl), qc=s)
+        max_log_parallel_factor_user=3, kernel_impl=impl,
+        pallas_interpret=True), qc=s)
     n = 8
     batch = create_data(code, ch, 0, n)
     llr2d = jnp.asarray(
@@ -59,13 +60,9 @@ def test_burst_prefix_identity_grouped(impl):
     code, s = make_qc_code(base, Z=256, seed=5)
     ch = BIAWGNChannel(0.8)
     dec = LDPCDecoder(code, ch, StaticParams(
-        max_log_parallel_factor_user=3, kernel_impl=impl), qc=s)
-    if impl == "pallas":
-        from ldpc_decoder_tpu.ops.qc_pallas_grouped import (
-            GroupedQCPallasTables,
-        )
-
-        assert isinstance(dec.tables, GroupedQCPallasTables)
+        max_log_parallel_factor_user=3, kernel_impl=impl,
+        pallas_interpret=True), qc=s)
+    assert dec.kernel == ("triton" if impl == "pallas" else "xla")
     n = 8
     batch = create_data(code, ch, 0, n)
     llr2d = jnp.asarray(
@@ -96,7 +93,8 @@ def test_decode_with_first_check(host_poll):
     code, s = make_qc_code(BASE_36, Z=128, seed=3)
     ch = BIAWGNChannel(0.72)
     dec = LDPCDecoder(code, ch, StaticParams(
-        max_log_parallel_factor_user=3, kernel_impl="pallas"), qc=s)
+        max_log_parallel_factor_user=3, kernel_impl="pallas",
+        pallas_interpret=True), qc=s)
     n = dec.parallel_factor() * 2
     batch = create_data(code, ch, 0, n)
     k = 3
@@ -133,7 +131,8 @@ def test_decode_sharded_with_first_check():
     ch = BIAWGNChannel(0.7)
     mesh = make_batch_mesh(4)
     dec = LDPCDecoder(code, ch, StaticParams(
-        max_log_parallel_factor_user=2, kernel_impl="pallas"), qc=s)
+        max_log_parallel_factor_user=2, kernel_impl="pallas",
+        pallas_interpret=True), qc=s)
     dyn = DynamicParams(num_iter_max=50, num_iter_check_parity=5,
                         num_iter_first_check=10, loading_factor=2)
     n = dec.parallel_factor() * dyn.loading_factor * 4

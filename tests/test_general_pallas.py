@@ -1,199 +1,20 @@
-"""Pallas general (non-QC) path: layout correctness + bit-equality with
-the XLA oracle (ops/decode.py), on CPU in interpret mode.
-
-The general Pallas path keeps the two XLA row-gathers and streams the
-node updates through blocked kernels in a padded plane-major layout (see
-ops/general_pallas.py). These tests pin (a) the layout/permutation
-algebra, (b) iteration-for-iteration equality of hard decisions and
-parity flags against ops/decode.run_iterations, and (c) end-to-end
-decoder equality between kernel_impl="pallas" and "xla" on the same
-frames (the general-path analog of the reference's OpenCL/CUDA
-cross-backend check, README.md:35)."""
+"""The general (non-QC) path, ops/decode.py, through the decoder: any alist
+decodes on XLA, and an explicit Pallas request for it is refused."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from ldpc_decoder_tpu.channels import BIAWGNChannel
-from ldpc_decoder_tpu.codes.code import compute_syndrome
-from ldpc_decoder_tpu.codes.compiled import compile_code
-from ldpc_decoder_tpu.codes.generate import (
-    make_irregular_code,
-    make_regular_code,
-)
-from ldpc_decoder_tpu.ops import decode as D
-from ldpc_decoder_tpu.ops import general_pallas as GP
+from ldpc_decoder_tpu.codes.generate import make_regular_code
 from ldpc_decoder_tpu.runtime.datagen import create_data
 from ldpc_decoder_tpu.runtime.decoder import LDPCDecoder
 from ldpc_decoder_tpu.runtime.params import DynamicParams, StaticParams
 
 
-def _setup(code, sigma, B, seed):
-    rng = np.random.default_rng(seed)
-    cc = compile_code(code)
-    bits = rng.integers(0, 2, size=(code.n_vars, B)).astype(np.int8)
-    syn = compute_syndrome(code, bits)
-    ch = BIAWGNChannel(sigma)
-    tx = np.where(bits > 0, 1.0, -1.0).astype(np.float32)
-    rx = tx + rng.normal(0, sigma, size=tx.shape).astype(np.float32)
-    llr = ch.llr_np(rx)
-    return cc, syn, llr
-
-
-def _pad_inputs(tp: GP.GeneralPallasTables, llr_nat, syn_nat):
-    """Natural-order inputs -> padded sorted layouts."""
-    B = llr_nat.shape[-1]
-    llr_p = np.zeros((tp.nv_pad, B), np.float32)
-    llr_p[np.asarray(tp.vn_pos)] = llr_nat
-    syn_p = np.asarray(syn_nat)[np.asarray(tp.cn_order)].astype(np.int8)
-    syn_p[~np.asarray(tp.valid_c)[:, 0]] = 0
-    return jnp.asarray(llr_p), jnp.asarray(syn_p)
-
-
-def _real_edge_rows(buckets):
-    rows = []
-    for p in buckets:
-        for k in range(p.degree):
-            rows.append(p.edge_start + k * p.count_pad
-                        + np.arange(p.count, dtype=np.int64))
-    return np.concatenate(rows)
-
-
-def test_tables_permutations_invert():
-    code = make_irregular_code(
-        96, 48, {2: 0.4, 3: 0.4, 4: 0.2}, {5: 0.5, 6: 0.5}, seed=3
-    )
-    cc = compile_code(code)
-    tp = GP.GeneralPallasTables.from_compiled(cc)
-    v2c = np.asarray(tp.perm_v2c)
-    c2v = np.asarray(tp.perm_c2v)
-    rv = _real_edge_rows(tp.vn_buckets)
-    rc = _real_edge_rows(tp.cn_buckets)
-    assert rv.size == code.n_edges and rc.size == code.n_edges
-    # the real rows of each layout map onto exactly the real rows of the
-    # other, and the two permutations invert each other on them
-    np.testing.assert_array_equal(np.sort(c2v[rv]), np.sort(rc))
-    np.testing.assert_array_equal(np.sort(v2c[rc]), np.sort(rv))
-    np.testing.assert_array_equal(v2c[c2v[rv]], rv)
-
-
-def _compare_paths(code, sigma, B, seed, dtype, ks=(1, 3), alg_kw=None):
-    cc, syn, llr = _setup(code, sigma, B, seed)
-    tx = D.DecodeTables.from_compiled(cc)
-    tp = GP.GeneralPallasTables.from_compiled(cc)
-
-    llr_s = jnp.asarray(llr[np.asarray(cc.vn_order)])
-    syn_s = jnp.asarray(syn[np.asarray(cc.cn_order)].astype(np.int8))
-    llr_p, syn_p = _pad_inputs(tp, llr, syn)
-
-    run_kw = dict(alg_kw) if alg_kw else {}
-    init_kw = {k: v for k, v in run_kw.items()
-               if k in ("alg", "clamp", "qscale")}
-    msgs_x = D.init_messages(llr_s, tx, dtype=dtype, **init_kw)
-    msgs_p = GP.init_messages_general(llr_p, tp, dtype=dtype, **init_kw)
-
-    vp_x = np.asarray(cc.vn_pos)
-    vp_p = np.asarray(tp.vn_pos)
-    for k in ks:
-        mx, bx, vx = D.run_iterations(msgs_x, llr_s, syn_s, tx, k,
-                                      **run_kw)
-        mp, bp_, vp_ = GP.run_iterations_general(msgs_p, llr_p, syn_p,
-                                                 tp, k, **run_kw)
-        np.testing.assert_array_equal(
-            np.asarray(bp_)[vp_p], np.asarray(bx)[vp_x],
-            err_msg=f"hard bits diverge at k={k} dtype={dtype}",
-        )
-        np.testing.assert_array_equal(np.asarray(vp_), np.asarray(vx))
-        msgs_x, msgs_p = mx, mp
-
-
-def test_regular_matches_oracle_bf16():
-    code = make_regular_code(256, 3, 6, seed=7)
-    _compare_paths(code, 0.8, 4, seed=11, dtype=jnp.bfloat16)
-
-
-def test_regular_matches_oracle_f32():
-    code = make_regular_code(256, 3, 6, seed=7)
-    _compare_paths(code, 0.8, 4, seed=11, dtype=jnp.float32)
-
-
-def test_irregular_multibucket_matches_oracle():
-    code = make_irregular_code(
-        96, 48, {2: 0.4, 3: 0.4, 4: 0.2}, {5: 0.5, 6: 0.5}, seed=3
-    )
-    _compare_paths(code, 0.9, 4, seed=13, dtype=jnp.bfloat16)
-
-
-def test_burst_matches_oracle():
-    code = make_regular_code(128, 3, 6, seed=9)
-    cc, syn, llr = _setup(code, 0.8, 4, seed=17)
-    tx = D.DecodeTables.from_compiled(cc)
-    tp = GP.GeneralPallasTables.from_compiled(cc)
-    llr_s = jnp.asarray(llr[np.asarray(cc.vn_order)])
-    syn_s = jnp.asarray(syn[np.asarray(cc.cn_order)].astype(np.int8))
-    llr_p, syn_p = _pad_inputs(tp, llr, syn)
-    mx = D.burst_iterations(
-        D.init_messages(llr_s, tx, dtype=jnp.bfloat16), llr_s, syn_s, tx, 4
-    )
-    mp = GP.burst_iterations_general(
-        GP.init_messages_general(llr_p, tp, dtype=jnp.bfloat16),
-        llr_p, syn_p, tp, 4,
-    )
-    # one more checked iteration from the burst state must agree
-    _, bx, vx = D.run_iterations(mx, llr_s, syn_s, tx, 1)
-    _, bp_, vp_ = GP.run_iterations_general(mp, llr_p, syn_p, tp, 1)
-    np.testing.assert_array_equal(
-        np.asarray(bp_)[np.asarray(tp.vn_pos)],
-        np.asarray(bx)[np.asarray(cc.vn_pos)],
-    )
-    np.testing.assert_array_equal(np.asarray(vp_), np.asarray(vx))
-
-
-def test_decoder_end_to_end_pallas_vs_xla():
-    code = make_regular_code(512, 3, 6, seed=21)
-    ch = BIAWGNChannel(0.78)
-    n = 16
-    batch = create_data(code, ch, 0, n)
-    dyn = DynamicParams(num_iter_max=60, num_iter_check_parity=5,
-                        loading_factor=2, target_errors=15)
-    res = {}
-    for impl in ("pallas", "xla"):
-        dec = LDPCDecoder(
-            code, ch,
-            StaticParams(max_log_parallel_factor_user=3, kernel_impl=impl,
-                         message_dtype="bfloat16", qc_autodetect=False),
-        )
-        results, stats = dec.decode(dyn, n, batch.values, batch.syndromes)
-        res[impl] = (np.asarray(results), np.asarray(stats.iterations))
-    np.testing.assert_array_equal(res["pallas"][0], res["xla"][0])
-    np.testing.assert_array_equal(res["pallas"][1], res["xla"][1])
-
-
-def test_sharded_general_pallas():
-    """The general Pallas path under shard_map on the virtual CPU mesh
-    (frames never span devices; only the remaining-frames scalar is
-    psum'd)."""
-    from ldpc_decoder_tpu.parallel.mesh import make_batch_mesh
-
-    code = make_regular_code(512, 3, 6, seed=25)
-    ch = BIAWGNChannel(0.7)
-    mesh = make_batch_mesh(4)
-    dec = LDPCDecoder(
-        code, ch,
-        StaticParams(max_log_parallel_factor_user=2, kernel_impl="pallas",
-                     message_dtype="bfloat16", qc_autodetect=False),
-    )
-    dyn = DynamicParams(num_iter_max=50, num_iter_check_parity=5,
-                        loading_factor=2)
-    n = dec.parallel_factor() * dyn.loading_factor * 4
-    batch = create_data(code, ch, 0, n)
-    results, stats = dec.decode_sharded(
-        dyn, n, batch.values, batch.syndromes, mesh
-    )
-    errors = np.bitwise_count(batch.ref_bits_packed() ^ results).sum()
-    assert int(errors) == 0
-
-
 def test_decoder_pallas_decodes_below_threshold():
+    """The general path decodes a random (3,6) code below threshold; an
+    explicit Pallas request for a non-QC code raises."""
     code = make_regular_code(512, 3, 6, seed=23)
     ch = BIAWGNChannel(0.7)
     n = 8
@@ -202,24 +23,26 @@ def test_decoder_pallas_decodes_below_threshold():
                         loading_factor=1, target_errors=15)
     dec = LDPCDecoder(
         code, ch,
-        StaticParams(max_log_parallel_factor_user=3, kernel_impl="pallas",
+        StaticParams(max_log_parallel_factor_user=3, kernel_impl="auto",
                      message_dtype="bfloat16", qc_autodetect=False),
     )
+    assert dec.kernel == "xla"
     results, stats = dec.decode(dyn, n, batch.values, batch.syndromes)
     errors = np.bitwise_count(
         batch.ref_bits_packed() ^ np.asarray(results)
     ).sum()
     assert errors == 0
+    with pytest.raises(ValueError, match="quasi-cyclic"):
+        LDPCDecoder(code, ch, StaticParams(
+            kernel_impl="pallas", pallas_interpret=True,
+            qc_autodetect=False))
 
 
 def test_bf16_pool_single_fill_presorted():
-    """The B=512-squeeze protocol: forced non-pow2 lane count
-    (StaticParams.parallel_factor_user), bf16 LLR pool (lossless — the
-    LLR state is bf16 anyway), single-fill pool (n == B exercises the
-    identity init-gather skip), presorted decode_presorted entry.
-    Results must equal the f32-pool decode() path's."""
-    import jax.numpy as jnp
-
+    """Forced non-pow2 lane count (StaticParams.parallel_factor_user), bf16
+    LLR pool (lossless — the LLR state is bf16 anyway), single-fill pool
+    (n == B exercises the identity init-gather skip), presorted
+    decode_presorted entry."""
     code = make_regular_code(512, 3, 6, seed=29)
     ch = BIAWGNChannel(0.72)
     n = 24
@@ -228,7 +51,7 @@ def test_bf16_pool_single_fill_presorted():
                         loading_factor=1, target_errors=15)
     dec = LDPCDecoder(
         code, ch,
-        StaticParams(parallel_factor_user=n, kernel_impl="pallas",
+        StaticParams(parallel_factor_user=n, kernel_impl="xla",
                      message_dtype="bfloat16", qc_autodetect=False),
     )
     vn = np.asarray(dec.cc.vn_order)
@@ -241,59 +64,23 @@ def test_bf16_pool_single_fill_presorted():
     assert int(errors) == 0
 
 
-def test_minsum_matches_oracle_bf16():
-    """Normalized/offset min-sum on the general path: Pallas streams vs
-    the ops/decode oracle, bit-identical bits/flags across iterations."""
-    code = make_regular_code(768, 3, 6, seed=31)
-    _compare_paths(code, 0.7, 32, 7, jnp.bfloat16,
-                   alg_kw=dict(alg="min-sum", beta=0.25, alpha=0.9,
-                               clamp=48.0))
-
-
-def test_minsum_int8_matches_oracle():
-    """int8 fixed-point min-sum messages (quantize-on-write, dequantize
-    at load): the quantization must match qc_decode.quantize_msgs on
-    both paths."""
-    code = make_regular_code(768, 3, 6, seed=33)
-    _compare_paths(code, 0.7, 32, 9, jnp.int8,
-                   alg_kw=dict(alg="min-sum", beta=0.0, alpha=0.875,
-                               qscale=4.0))
-
-
-def test_minsum_irregular_alpha_table_matches_oracle():
-    """Multi-bucket irregular code with per-check-degree normalization
-    (resolve_minsum_alpha's degree-matched path)."""
-    code = make_irregular_code(
-        192, 96, {2: 0.4, 3: 0.4, 4: 0.2}, {5: 0.5, 6: 0.5}, seed=13
-    )
-    _compare_paths(code, 0.6, 16, 11, jnp.bfloat16,
-                   alg_kw=dict(alg="min-sum", beta=0.0,
-                               alpha=((5, 0.9), (6, 0.95), (0, 0.875)),
-                               clamp=64.0))
-
-
 def test_decoder_minsum_general_int8_decodes():
     """End-to-end: non-QC code through the decoder with
-    algorithm='min-sum' + int8 messages (previously rejected with
-    'QC paths only'). NMS alpha 0.8 on (3,6) at sigma 0.7 has ~0.17
-    sigma of margin — must decode clean."""
+    algorithm='min-sum' + int8 messages. NMS alpha 0.8 on (3,6) at sigma
+    0.7 has ~0.17 sigma of margin — must decode clean."""
     code = make_regular_code(512, 3, 6, seed=41)
     ch = BIAWGNChannel(0.7)
     n = 16
     batch = create_data(code, ch, 0, n)
     dyn = DynamicParams(num_iter_max=80, num_iter_check_parity=5,
                         loading_factor=2, target_errors=15)
-    res = {}
-    for impl in ("pallas", "xla"):
-        dec = LDPCDecoder(
-            code, ch,
-            StaticParams(max_log_parallel_factor_user=3, kernel_impl=impl,
-                         algorithm="min-sum", minsum_alpha=0.8,
-                         minsum_offset=0.0, message_dtype="int8",
-                         qc_autodetect=False),
-        )
-        results, stats = dec.decode(dyn, n, batch.values, batch.syndromes)
-        res[impl] = np.asarray(results)
-        errors = np.bitwise_count(batch.ref_bits_packed() ^ res[impl]).sum()
-        assert int(errors) == 0, impl
-    np.testing.assert_array_equal(res["pallas"], res["xla"])
+    dec = LDPCDecoder(
+        code, ch,
+        StaticParams(max_log_parallel_factor_user=3, kernel_impl="xla",
+                     algorithm="min-sum", minsum_alpha=0.8,
+                     minsum_offset=0.0, message_dtype="int8",
+                     qc_autodetect=False),
+    )
+    results, stats = dec.decode(dyn, n, batch.values, batch.syndromes)
+    errors = np.bitwise_count(batch.ref_bits_packed() ^ results).sum()
+    assert int(errors) == 0

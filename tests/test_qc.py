@@ -176,7 +176,6 @@ def test_qc_autodetection_upgrades_plain_alist():
     (codes/qc.detect_qc_structure; StaticParams.qc_autodetect)."""
     from ldpc_decoder_tpu.codes.qc import detect_qc_structure
     from ldpc_decoder_tpu.ops.qc_decode import QCDecodeTables
-    from ldpc_decoder_tpu.ops import qc_pallas, qc_pallas_grouped
 
     code, s = make_qc_code(BASE_36, Z=256, seed=3, coarse=64, fine_mod=4)
     det = detect_qc_structure(code)
@@ -185,10 +184,7 @@ def test_qc_autodetection_upgrades_plain_alist():
         np.sort(det.edge_shift), np.sort(s.edge_shift))
     ch = BIAWGNChannel(0.7)
     dec = LDPCDecoder(code, ch, StaticParams(max_log_parallel_factor_user=3))
-    assert isinstance(
-        dec.tables,
-        (QCDecodeTables, qc_pallas.QCPallasTables,
-         qc_pallas_grouped.GroupedQCPallasTables))
+    assert isinstance(dec.tables, QCDecodeTables)
     dyn = DynamicParams(num_iter_max=40, num_iter_check_parity=5,
                         loading_factor=2)
     n = dec.parallel_factor() * 2

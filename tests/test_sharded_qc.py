@@ -1,4 +1,5 @@
-"""Multi-chip (virtual CPU mesh) decode through the QC Pallas paths."""
+"""Multi-device (virtual CPU mesh) decode through the QC Pallas kernels
+in interpret mode."""
 
 import numpy as np
 
@@ -15,7 +16,8 @@ def _run_sharded(code, s, ch, n_devices=4):
     mesh = make_batch_mesh(n_devices)
     dec = LDPCDecoder(
         code, ch, StaticParams(max_log_parallel_factor_user=2,
-                               kernel_impl="pallas"), qc=s
+                               kernel_impl="pallas", pallas_interpret=True),
+        qc=s
     )
     dyn = DynamicParams(num_iter_max=50, num_iter_check_parity=5,
                         loading_factor=2)
@@ -59,10 +61,9 @@ def test_sharded_seam_at_scale():
     ch = BIAWGNChannel(0.72)  # well below threshold: converges in ~10 iters
     dec = LDPCDecoder(
         code, ch, StaticParams(max_log_parallel_factor_user=1,
-                               kernel_impl="pallas"), qc=s)
-    from ldpc_decoder_tpu.ops.qc_pallas_grouped import GroupedQCPallasTables
-
-    assert isinstance(dec.tables, GroupedQCPallasTables)
+                               kernel_impl="pallas", pallas_interpret=True),
+        qc=s)
+    assert dec.kernel == "triton"
     dyn = DynamicParams(num_iter_max=40, num_iter_check_parity=7,
                         loading_factor=2)
     b = dec.parallel_factor()
